@@ -34,8 +34,6 @@ def run_perf(tree: str, cfg: str, scene: str, platform: str) -> dict:
             cmd += ["--platform", platform]
         env = dict(os.environ)
         env["PYTHONPATH"] = tree + os.pathsep + env.get("PYTHONPATH", "")
-        env.setdefault("JAX_COMPILATION_CACHE_DIR",
-                       os.path.join(REPO, ".jax_cache"))
         out = subprocess.run(cmd, cwd=tree, env=env, capture_output=True,
                              text=True, check=True)
         return json.loads(out.stdout.strip().splitlines()[-1])

@@ -5,8 +5,9 @@ The reference hand-recorded a thread-count sweep at 640x480 @ 50 spp
 (/root/reference/manualTestResults.txt); this sweeps mesh device counts for
 both sharding modes and prints one JSON line per point.
 
-On a single-chip host use --platform cpu to sweep the virtual 8-device
-mesh (functional scaling only); on a pod slice it measures real ICI scaling.
+Every line names the device it ran on.  With --platform cpu it sweeps a
+virtual CPU mesh (functional scaling only, no device timing); on a
+multi-GPU host it measures real scaling.
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ def main():
 
     from win32_raytracer_tpu._cache import enable_compile_cache
 
-    enable_compile_cache()  # env var is read-too-late (runtime notes #21)
+    enable_compile_cache()
 
     from win32_raytracer_tpu.api import render
     from win32_raytracer_tpu.config import RenderConfig
@@ -47,6 +48,8 @@ def main():
     w, h, s = (int(v) for v in args.config.split("x"))
     cfg = RenderConfig(width=w, height=h, samples=s, seed=3)
     avail = len(jax.devices())
+    dev = {"platform": jax.devices()[0].platform,
+           "kind": jax.devices()[0].device_kind}
     rays = w * h * s
 
     for d in (int(v) for v in args.devices.split(",")):
@@ -59,7 +62,8 @@ def main():
         res = render(args.scene, cfg=cfg, mesh=mesh, shard_mode=args.mode)
         dt = time.perf_counter() - t0
         print(json.dumps({
-            "devices": d, "mode": args.mode if d > 1 else "single",
+            "devices": d, "device": dev,
+            "mode": args.mode if d > 1 else "single",
             "wall_ms": round(dt * 1e3, 1),
             "mrays_per_sec": round(rays / dt / 1e6, 3),
         }), flush=True)

@@ -1,16 +1,16 @@
-"""Shard a render over a device mesh — the TPU answer to the reference's
+"""Shard a render over a device mesh — the counterpart of the reference's
 std::thread row scheduler (RayTracer.cpp:962-1010): interleaved row-
-blocks per device, one ICI reduction at the end.
+blocks per device, one cross-device reduction at the end.
 
-On a multi-chip host this uses the real chips.  With --cpu it
-demonstrates the same code on a VIRTUAL 8-device CPU mesh (a
-single-TPU-chip host WITHOUT --cpu gets a 1-device TPU mesh — the
-device-count override only affects the CPU platform)."""
+On a multi-GPU host this uses the real GPUs.  With --cpu it demonstrates
+the same code on a VIRTUAL 8-device CPU mesh (a one-GPU host WITHOUT
+--cpu gets a 1-device mesh — the device-count override only affects the
+CPU platform)."""
 
 import os
 
 # Set unconditionally, before jax initializes: it only affects the CPU
-# platform (real chips ignore it), and it must be in place for --cpu to
+# platform (GPUs ignore it), and it must be in place for --cpu to
 # see 8 virtual devices.
 os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
                            + " --xla_force_host_platform_device_count=8")

@@ -14,7 +14,7 @@
 //                         the golden-image oracle for the JAX renderer: it
 //                         follows the same material rules, constants, and
 //                         RNG consumption pattern as the C++ original, so
-//                         tests can validate the TPU implementation against
+//                         tests can validate the JAX implementation against
 //                         reference behavior without a Windows build.
 //
 // This file is a fresh implementation written for this framework — scalar,

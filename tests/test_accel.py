@@ -123,8 +123,8 @@ def test_mask_saves_work(gscene):
     o = (np.repeat(centers, rb, axis=0)
          + rng.uniform(-0.5, 0.5, (n, 3)) * [1.0, 0.4, 1.0])
     # Lambertian-like bounce dirs (normal + unit ball, ground normal = up):
-    # measured on real renders, bounce-depth masks sit near 0.5 and
-    # primaries near 0.13 (see docs/perf_roadmap.md).
+    # on real renders, bounce-depth masks sit near 0.5 and primaries
+    # near 0.13.
     d = rng.normal(0, 0.55, (n, 3)) + [0.0, 1.0, 0.0]
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     o = jnp.asarray(o, jnp.float32)

@@ -74,9 +74,8 @@ def test_flythrough_sharded_over_mesh(eight_devices, tmp_path):
 
 def test_auto_batch_frames_and_multiframe_kpp():
     """Auto batching packs as many frames per batch as the lane budget
-    allows at the multi-frame kpp rule (quota over replicas): the
-    tpu_jobs 618 grid read one kpp1 8-frame batch 4.30 fps vs the old
-    overlapped kpp4 4+4 split 2.40.  Long animations split evenly."""
+    allows at the multi-frame kpp rule (quota over replicas).  Long
+    animations split evenly."""
     from win32_raytracer_tpu.animation import _auto_batch_frames
     from win32_raytracer_tpu.persistent import _resolve_kpp
 

@@ -12,12 +12,15 @@ Two regimes (SURVEY.md §4):
   tonemapped error must vanish as spp grows.
 """
 
+import functools
+
 import numpy as np
 import pytest
 
 from win32_raytracer_tpu import oracle
 from win32_raytracer_tpu.config import RenderConfig
 from win32_raytracer_tpu.core import materials as mat
+from win32_raytracer_tpu.kernels.hit_triton import hit_spheres_triton
 from win32_raytracer_tpu.render import render
 from win32_raytracer_tpu.scene.builders import test_scene as make_test_scene
 from win32_raytracer_tpu.scene.camera import make_camera
@@ -26,6 +29,9 @@ from win32_raytracer_tpu.scene.spheres import SceneBuilder
 pytestmark = pytest.mark.skipif(
     not oracle.available(), reason="native oracle not built"
 )
+
+# Module-level so the hit function (a static jit argument) is one object.
+_interpret_kernel = functools.partial(hit_spheres_triton, interpret=True)
 
 CAM_ARGS = dict(look_from=(0.0, 1.0, 4.0), look_to=(0.0, 0.5, 0.0),
                 up=(0.0, 1.0, 0.0), vfov_deg=45.0, aperture=0.0)
@@ -149,28 +155,24 @@ def test_reference_lane_truncation_quirk_documented():
         np.abs(ours.astype(float) - full.astype(float)).mean()
 
 
-def test_statistical_persistent_fused_production_path(monkeypatch):
-    """The PRODUCTION headline path — persistent scheduler + v7 hit +
-    fused Mosaic bounce — pinned to the native oracle (round-2 VERDICT
-    item 8: the prior golden tests exercised only the wavefront/jnp
-    path, not the path that produces the benchmark number).
-
-    The Mosaic kernels run in Pallas interpret mode on the CPU runner
-    (cfg.pallas_interpret); the compaction floor is patched to 0 so the
-    whole render stays in the above-floor fused-bounce regime instead
-    of the below-floor XLA tail programs (CI shapes are tiny).
-    fuse_bounce='on' raises if the fused kernel is not actually
-    engaged, so a silent fallback cannot pass this test.
-    """
+def test_statistical_persistent_kernel_path(monkeypatch):
+    """The GPU main path — persistent scheduler + the Triton sphere kernel
+    (kernels/hit_triton.py) — pinned to the native oracle.  The kernel
+    runs in Pallas interpret mode here; the compaction floor is patched
+    to 0 so the render stays in the above-floor regime (split hit and
+    scatter programs, compactions) instead of the below-floor one-shot
+    program (test shapes are tiny)."""
     import win32_raytracer_tpu.persistent as P
+    from win32_raytracer_tpu.render import tonemap
+    from win32_raytracer_tpu.scene.camera import default_camera
 
     monkeypatch.setattr(P, "_COMPACT_FLOOR", 0)
     cfg = RenderConfig(width=48, height=32, samples=4, seed=13,
-                       scheduler="persistent", pallas_interpret=True,
-                       fuse_bounce="on")
+                       scheduler="persistent")
     scene = make_test_scene()
-    from win32_raytracer_tpu.scene.camera import default_camera
-    ours = render(scene, cam=default_camera(cfg.width, cfg.height), cfg=cfg)
+    ours = np.asarray(tonemap(P.render_image_persistent(
+        scene, default_camera(cfg.width, cfg.height), cfg,
+        hit_fn=_interpret_kernel)))
     focus = float(np.linalg.norm(np.array([15.0, 2, 4]) - np.array([0.0, 1, 0])))
     ref = oracle.oracle_render(scene, (15, 2, 4), (0, 1, 0), (0, 1, 0),
                                20.0, 0.1, focus, cfg)

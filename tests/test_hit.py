@@ -1,6 +1,7 @@
 """Hit-kernel tests vs a scalar NumPy oracle (SURVEY.md §4)."""
 
 import numpy as np
+import pytest
 
 import jax
 import jax.numpy as jnp
@@ -140,3 +141,75 @@ def test_padding_never_hits():
     rec = jax.jit(hit_spheres)(s, o, d, jnp.zeros((256,)))
     idx = np.asarray(rec.idx)[np.asarray(rec.hit)]
     assert idx.size == 0 or idx.max() < 6
+
+
+def _onehot_sweep(scene, origin, direction, time, min_t=0.001, tile=128):
+    """The former winner fetch — a first-occurrence one-hot matrix
+    product per tile, carried across tiles — kept here as the reference
+    the exact ``argmin`` + ``take`` gather must reproduce bit for bit."""
+    from win32_raytracer_tpu.ops.hit import ATTR_COLS, _attr_matrix
+
+    k = scene.padded_size // tile
+    tiles = _attr_matrix(scene).reshape(k, tile, ATTR_COLS)
+    active = scene.active.astype(jnp.float32).reshape(k, tile)
+    ox, oy, oz = origin[:, 0:1], origin[:, 1:2], origin[:, 2:3]
+    dx, dy, dz = direction[:, 0:1], direction[:, 1:2], direction[:, 2:3]
+    a = dx * dx + dy * dy + dz * dz
+    tcol = time[:, None]
+
+    def body(carry, args):
+        tl, act = args
+        best_t, best_a = carry
+        lerp = (tcol - tl[:, 6][None]) * tl[:, 7][None]
+        cx = tl[:, 0][None] + tl[:, 3][None] * lerp
+        cy = tl[:, 1][None] + tl[:, 4][None] * lerp
+        cz = tl[:, 2][None] + tl[:, 5][None] * lerp
+        ocx, ocy, ocz = ox - cx, oy - cy, oz - cz
+        b = dx * ocx + dy * ocy + dz * ocz
+        c = ocx * ocx + ocy * ocy + ocz * ocz - tl[:, 8][None] ** 2
+        disc = b * b - a * c
+        t = (-b - jnp.sqrt(jnp.maximum(disc, 0.0))) / a
+        t = jnp.where((disc >= 0) & (t > min_t) & (act[None] > 0.5), t,
+                      F32_MAX)
+        tile_t = jnp.min(t, axis=1)
+        eq = (t == tile_t[:, None]).astype(jnp.float32)
+        onehot = eq * (jnp.cumsum(eq, axis=1) == 1.0)
+        sel = jnp.dot(onehot, tl, precision=jax.lax.Precision.HIGHEST)
+        better = tile_t < best_t
+        return (jnp.where(better, tile_t, best_t),
+                jnp.where(better[:, None], sel, best_a)), None
+
+    n = origin.shape[0]
+    init = (jnp.full((n,), F32_MAX), jnp.zeros((n, ATTR_COLS), jnp.float32))
+    (best_t, best_a), _ = jax.lax.scan(body, init, (tiles, active))
+    return best_t, best_a
+
+
+@pytest.mark.parametrize("scene_name,t_hi", [("test", 0.05), ("final", 0.05),
+                                             ("final", 1.0)])
+def test_exact_gather_matches_onehot_contraction(scene_name, t_hi):
+    """The argmin + take winner fetch returns exactly the rows the one-hot
+    contraction did (idx/material/albedo bit-identical, t identical)."""
+    from win32_raytracer_tpu.scene.builders import get_scene
+
+    scene = get_scene(scene_name)
+    rng = np.random.default_rng(4)
+    n = 512
+    o = np.stack([rng.uniform(-12, 12, n), rng.uniform(0.05, 3, n),
+                  rng.uniform(-12, 12, n)], axis=1).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    tm = rng.uniform(0, t_hi, n).astype(np.float32)
+    rec = jax.jit(hit_spheres)(scene, o, d, tm)
+    ref_t, ref_a = jax.jit(_onehot_sweep)(scene, o, d, tm)
+    ref_t, ref_a = np.asarray(ref_t), np.asarray(ref_a)
+    hit = np.asarray(rec.hit)
+    assert hit.any() and (~hit).any()
+    np.testing.assert_array_equal(np.asarray(rec.t), ref_t)
+    np.testing.assert_array_equal(np.asarray(rec.idx)[hit],
+                                  ref_a[hit, 15].astype(np.int32))
+    np.testing.assert_array_equal(np.asarray(rec.mat_id)[hit],
+                                  ref_a[hit, 9].astype(np.int32))
+    np.testing.assert_array_equal(np.asarray(rec.albedo)[hit],
+                                  ref_a[hit, 10:13])
+    np.testing.assert_array_equal(np.asarray(rec.fuzz)[hit], ref_a[hit, 13])
+    np.testing.assert_array_equal(np.asarray(rec.ior)[hit], ref_a[hit, 14])

@@ -1,5 +1,5 @@
 """shard_map tile parallelism on the virtual 8-device CPU mesh
-(the TPU analogue of a fake backend, SURVEY.md §4)."""
+(a fake backend, SURVEY.md §4)."""
 
 import numpy as np
 import pytest
@@ -48,7 +48,7 @@ def test_rows_mode_close_to_single_device(scene, eight_devices):
 
 
 def test_spp_mode_psum(scene, eight_devices):
-    """Sample-sharded rendering with the ICI pmean reduction."""
+    """Sample-sharded rendering with the cross-device pmean reduction."""
     cfg = RenderConfig(width=64, height=32, samples=16, seed=7)
     img = render_sharded(scene, cfg=cfg, mesh=make_mesh(8), mode="spp")
     assert img.shape == (32, 64, 3)

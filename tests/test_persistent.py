@@ -115,9 +115,8 @@ def test_persistent_render_with_redistribution_statistics():
 
 
 def test_redistribute_defaults_off():
-    """redistribute='auto' must resolve to OFF: the headline A/B measured
-    receivers a ~10% loss (job 245, docs/perf_roadmap.md).  Only an
-    explicit 'on' takes the overshoot path."""
+    """redistribute='auto' must resolve to OFF: only an explicit 'on'
+    takes the overshoot path."""
     assert RenderConfig().redistribute == "auto"
     # The driver gates on the literal string 'on'; 'auto' must not match.
     import inspect
@@ -526,7 +525,7 @@ def test_compact_tail_sorted_flush_exact_across_compactions():
     the per-pixel radiance accounting exact.  Regression: a dead-bit-
     only key interleaved newly-dead and retained-dead pixels from the
     second compaction on while still promising sorted indices to
-    segment_sum — XLA-undefined on TPU."""
+    segment_sum — undefined behaviour in XLA."""
     from win32_raytracer_tpu.persistent import PathState, _compact_core
 
     rng = np.random.default_rng(0)
@@ -571,8 +570,8 @@ def test_compact_tail_sorted_flush_exact_across_compactions():
 
 def test_compact_quantum_grid_and_statistical_match(monkeypatch):
     """cfg.compact_quantum coarsens the above-floor compaction size grid
-    (fewer distinct batch shapes = smaller first-time compile surface,
-    tpu_jobs 592).  _grid_size honors it above the floor only, and a
+    (fewer distinct batch shapes = smaller first-time compile
+    surface).  _grid_size honors it above the floor only, and a
     render with a coarser quantum stays statistically equivalent (the
     quantum changes compaction sizes, which re-key lane draws like any
     other compaction-cadence knob)."""
@@ -695,8 +694,7 @@ def test_exact_divmod_any_exactness():
 def test_xla_bounce_lean_bit_exact():
     """The XLA step cores' static ``lean`` flag (strat/RR compiled out)
     must be bit-identical to the traced identity forms when the config
-    cannot stratify or Russian-roulette — same contract as the Mosaic
-    kernels' flag (test_scatter_pallas.py)."""
+    cannot stratify or Russian-roulette."""
     from win32_raytracer_tpu.kernels.dispatch import get_hit_fn_rows_accel
     from win32_raytracer_tpu.persistent import (
         PathState, _resolve_kpp, make_dims, p_bounce_step, p_respawn_step,

@@ -1,4 +1,4 @@
-"""Triangle Morton-tile grid (tri_accel.py + kernels/tri_grid_rows.py).
+"""Triangle Morton-tile grid (tri_accel.py).
 
 Exactness contract: the accelerated sweep must match the brute jnp
 oracle (ops/hit_tri.hit_triangles) on every ray — the mask is
@@ -13,9 +13,10 @@ import jax.numpy as jnp
 from win32_raytracer_tpu.ops.hit_tri import hit_triangles
 from win32_raytracer_tpu.scene.triangles import (
     box_mesh, build_triangle_scene, icosphere_mesh)
+from win32_raytracer_tpu.ops.hit_tri import _T_IDX
 from win32_raytracer_tpu.tri_accel import (
-    build_tri_grid, hit_triangles_grid_jnp, tri_block_mask_rows)
-from win32_raytracer_tpu.kernels.tri_grid_rows import hit_triangles_grid_rows
+    build_tri_grid, hit_triangles_grid_jnp, hit_triangles_grid_rows_jnp,
+    tri_block_mask_rows)
 
 
 def _mesh(subdiv=3):
@@ -48,11 +49,9 @@ def test_build_tri_grid_structure():
     sdiag = np.linalg.norm(sbox[1::2] - sbox[0::2])
     assert diag.mean() < 0.45 * sdiag
     # every active triangle appears exactly once
-    idxs = np.asarray(grid.tile_attrs)[:, -2]  # _T_IDX column
-    ones = np.asarray(grid.tile_attrs)[:, -1]
+    idxs = np.asarray(grid.tile_attrs)[:, _T_IDX]
     real = idxs[np.asarray(grid.tile_attrs)[:, 3:9].any(axis=1)]
     assert len(np.unique(real)) == int(np.asarray(scene.active).sum())
-    assert (ones == 1.0).all()
 
 
 def test_small_mesh_declines():
@@ -71,7 +70,7 @@ def test_mask_is_conservative_and_grid_jnp_exact():
     got_t = np.asarray(t_g)[0]
     np.testing.assert_allclose(got_t, ref_t, rtol=1e-5)
     hit = np.asarray(ref.hit)
-    got_idx = np.asarray(g)[-2]
+    got_idx = np.asarray(g)[_T_IDX]
     assert (got_idx[hit] == np.asarray(ref.idx)[hit]).all()
 
 
@@ -98,14 +97,13 @@ def test_mask_tightens_with_t_cap():
     assert bool(((capped == 1) <= (open_mask == 1)).all())
 
 
-def test_grid_kernel_interpret_matches_oracle():
+def test_grid_rows_matches_oracle():
     scene = _mesh(3)
     grid = build_tri_grid(scene, tile_rows=64)
     o, d, tm = _rays(512, seed=7)
     ref = hit_triangles(scene, np.asarray(o).T, np.asarray(d).T,
                         np.asarray(tm)[0])
-    rec = hit_triangles_grid_rows(grid, o, d, tm, ray_block=256,
-                                  interpret=True, use_mxu=False)
+    rec = hit_triangles_grid_rows_jnp(grid, o, d, tm, ray_block=256)
     np.testing.assert_array_equal(np.asarray(rec.hit)[0],
                                   np.asarray(ref.hit))
     hit = np.asarray(ref.hit)
@@ -126,57 +124,31 @@ def test_grid_kernel_t_cap_never_drops_nearer_hits():
     ref = hit_triangles(scene, np.asarray(o).T, np.asarray(d).T,
                         np.asarray(tm)[0])
     cap = jnp.full((1, 512), 2.0, jnp.float32)
-    rec = hit_triangles_grid_rows(grid, o, d, tm, ray_block=256,
-                                  interpret=True, t_cap=cap,
-                                  use_mxu=False)
+    rec = hit_triangles_grid_rows_jnp(grid, o, d, tm, ray_block=256,
+                                      t_cap=cap)
     ref_t = np.asarray(ref.t)
     near = np.asarray(ref.hit) & (ref_t < 2.0)
     np.testing.assert_allclose(np.asarray(rec.t)[0][near], ref_t[near],
                                rtol=1e-5)
 
 
-def test_grid_kernel_mxu_matches_oracle_statistically():
-    """The production split-bf16 MXU tile sweep: same hits as the oracle
-    up to the documented ~2^-17 limb-product tolerance (grazing-measure
-    flips only — none on this mesh at these rays)."""
-    scene = _mesh(3)
-    grid = build_tri_grid(scene, tile_rows=64)
-    o, d, tm = _rays(512, seed=11)
-    ref = hit_triangles(scene, np.asarray(o).T, np.asarray(d).T,
-                        np.asarray(tm)[0])
-    rec = hit_triangles_grid_rows(grid, o, d, tm, ray_block=256,
-                                  interpret=True, use_mxu=True)
-    hit_b = np.asarray(ref.hit)
-    hit_g = np.asarray(rec.hit)[0]
-    assert (hit_b == hit_g).mean() > 0.995
-    both = hit_b & hit_g
-    rel = np.abs(np.asarray(rec.t)[0][both] - np.asarray(ref.t)[both])
-    rel /= np.maximum(np.asarray(ref.t)[both], 1e-6)
-    assert np.median(rel) < 1e-4
-    assert (np.asarray(rec.idx)[0][both]
-            == np.asarray(ref.idx)[both]).mean() > 0.99
-
-
 @pytest.mark.parametrize("tile_rows", [128, 256])
-def test_grid_kernel_mxu_coarse_tiles(tile_rows):
-    """Tile granularity is a tuning knob (fewer, fatter MXU matmuls per
-    scheduled tile); the kernel must stay exact-through-tolerance at
-    coarser tiles than the default 64."""
+def test_grid_coarse_tiles(tile_rows):
+    """Tile granularity is a tuning knob (fewer, fatter tiles, coarser
+    culling); the sweep must stay exact at coarser tiles than 64."""
     scene = _mesh(3)
     grid = build_tri_grid(scene, tile_rows=tile_rows)
     assert grid is not None and grid.tile_rows == tile_rows
     o, d, tm = _rays(512, seed=13)
     ref = hit_triangles(scene, np.asarray(o).T, np.asarray(d).T,
                         np.asarray(tm)[0])
-    rec = hit_triangles_grid_rows(grid, o, d, tm, ray_block=256,
-                                  interpret=True, use_mxu=True)
-    hit_b = np.asarray(ref.hit)
-    hit_g = np.asarray(rec.hit)[0]
-    assert (hit_b == hit_g).mean() > 0.995
-    both = hit_b & hit_g
-    rel = np.abs(np.asarray(rec.t)[0][both] - np.asarray(ref.t)[both])
-    rel /= np.maximum(np.asarray(ref.t)[both], 1e-6)
-    assert np.median(rel) < 1e-4
+    rec = hit_triangles_grid_rows_jnp(grid, o, d, tm, ray_block=256)
+    hit = np.asarray(ref.hit)
+    np.testing.assert_array_equal(np.asarray(rec.hit)[0], hit)
+    np.testing.assert_allclose(np.asarray(rec.t)[0][hit],
+                               np.asarray(ref.t)[hit], rtol=1e-5)
+    np.testing.assert_array_equal(np.asarray(rec.idx)[0][hit],
+                                  np.asarray(ref.idx)[hit])
 
 
 def test_build_tri_grid_memoized():
@@ -191,16 +163,15 @@ def test_build_tri_grid_memoized():
 @pytest.mark.parametrize("ray_block", [128, 512])
 def test_grid_kernel_ray_block_knob(ray_block):
     """Ray-block granularity is the other tuning axis (smaller blocks =
-    tighter conservative masks, thinner MXU contractions); results must
-    not depend on it.  Exercises the segmentation math at non-default
-    block sizes (cfg.tri_ray_block reaches the kernel via dispatch)."""
+    tighter conservative masks); results must not depend on it.
+    Exercises the segmentation math at non-default block sizes
+    (cfg.tri_ray_block reaches the sweep via dispatch)."""
     scene = _mesh(3)
     grid = build_tri_grid(scene, tile_rows=64)
     o, d, tm = _rays(512, seed=17)
     ref = hit_triangles(scene, np.asarray(o).T, np.asarray(d).T,
                         np.asarray(tm)[0])
-    rec = hit_triangles_grid_rows(grid, o, d, tm, ray_block=ray_block,
-                                  interpret=True, use_mxu=False)
+    rec = hit_triangles_grid_rows_jnp(grid, o, d, tm, ray_block=ray_block)
     np.testing.assert_array_equal(np.asarray(rec.hit)[0],
                                   np.asarray(ref.hit))
     hit = np.asarray(ref.hit)
@@ -221,192 +192,6 @@ def test_dispatch_tri_ray_block_keying():
     assert f_2048 is not f_default  # explicit 2048 keys separately
 
 
-def test_schedule_tlo_lower_bounds_every_hit():
-    """tri_block_schedule_rows's tlo must lower-bound the t of every
-    actual hit: for each brute-sweep winner, the winning tile's bound for
-    the ray's block is <= the hit t (this is what makes the front-to-back
-    early exit exact)."""
-    from win32_raytracer_tpu.ops.hit_tri import _T_IDX
-    from win32_raytracer_tpu.tri_accel import tri_block_schedule_rows
-
-    scene = _mesh(3)
-    grid = build_tri_grid(scene, tile_rows=64)
-    o, d, tm = _rays(512, seed=21)
-    ref = hit_triangles(scene, np.asarray(o).T, np.asarray(d).T,
-                        np.asarray(tm)[0])
-    rb = 128
-    mask, tlo, cap = tri_block_schedule_rows(grid, o, d, None, 0.001, rb)
-    mask, tlo, cap = (np.asarray(mask), np.asarray(tlo), np.asarray(cap))
-
-    # triangle index -> tile id
-    idx_col = np.asarray(grid.tile_attrs)[:, _T_IDX].astype(np.int64)
-    st = grid.tile_rows
-    tri_to_tile = {}
-    for row, tri in enumerate(idx_col):
-        if np.asarray(grid.tile_attrs)[row, 3:9].any():
-            tri_to_tile[int(tri)] = row // st
-
-    hit = np.asarray(ref.hit)
-    t_hit = np.asarray(ref.t)
-    idxs = np.asarray(ref.idx)
-    for r in np.flatnonzero(hit):
-        tile = tri_to_tile[int(idxs[r])]
-        b = r // rb
-        assert mask[b, tile] == 1
-        assert tlo[b, tile] <= t_hit[r] * (1 + 1e-5) + 1e-6
-        # and the lane's segment-end cap can't cut off its own hit
-        assert cap[0, r] >= t_hit[r] * (1 - 1e-5)
-
-
-def test_early_exit_matches_full_sweep_exactly():
-    """Coherent clustered rays (the case where the exit fires early):
-    the early-exit sweep must be bit-identical to the full masked sweep."""
-    scene = _mesh(3)
-    grid = build_tri_grid(scene, tile_rows=64)
-    rng = np.random.default_rng(23)
-    n = 512
-    o = jnp.asarray(np.float32(
-        np.array([[4.0], [1.0], [0.0]]) + rng.normal(0, 0.05, (3, n))))
-    d = jnp.asarray(np.float32(
-        np.array([[-1.0], [0.0], [0.0]]) + rng.normal(0, 0.15, (3, n))))
-    tm = jnp.zeros((1, n), jnp.float32)
-    a = hit_triangles_grid_rows(grid, o, d, tm, ray_block=128,
-                                interpret=True, use_mxu=False,
-                                early_exit=True)
-    b = hit_triangles_grid_rows(grid, o, d, tm, ray_block=128,
-                                interpret=True, use_mxu=False,
-                                early_exit=False)
-    for fa, fb in zip(a, b):
-        np.testing.assert_array_equal(np.asarray(fa), np.asarray(fb))
-
-
-def test_early_exit_with_t_cap_matches_full_sweep():
-    scene = _mesh(3)
-    grid = build_tri_grid(scene, tile_rows=64)
-    o, d, tm = _rays(512, seed=27)
-    cap = jnp.full((1, 512), 3.0, jnp.float32)
-    a = hit_triangles_grid_rows(grid, o, d, tm, ray_block=128,
-                                interpret=True, use_mxu=False,
-                                t_cap=cap, early_exit=True)
-    b = hit_triangles_grid_rows(grid, o, d, tm, ray_block=128,
-                                interpret=True, use_mxu=False,
-                                t_cap=cap, early_exit=False)
-    for fa, fb in zip(a, b):
-        np.testing.assert_array_equal(np.asarray(fa), np.asarray(fb))
-
-
-def test_any_skip_matches_unconditional_sweep_exactly():
-    """The in-kernel any-touch contraction gate (tri_any_skip): within
-    each lane's effective segment (scene exit ∧ t_cap) results are
-    bit-identical to the unconditional sweep — a skipped tile is one no
-    lane's capped-to-current-best segment touches, so it could never
-    have updated a valid winner.  BEYOND the cap records are unspecified
-    (the unconditional sweep reports junk winners from tiles swept for
-    other lanes' sake — the composite combine discards them), but the
-    gate may only lose candidates, so t is monotonically >=.  Scattered
-    incoherent rays maximize union degeneracy (the case where the gate
-    actually fires)."""
-    scene = _mesh(3)
-    grid = build_tri_grid(scene, tile_rows=64)
-    o, d, tm = _rays(512, seed=31)
-    for cap in (None, jnp.full((1, 512), 2.5, jnp.float32)):
-        a = hit_triangles_grid_rows(grid, o, d, tm, ray_block=128,
-                                    interpret=True, use_mxu=False,
-                                    t_cap=cap, any_skip=True)
-        b = hit_triangles_grid_rows(grid, o, d, tm, ray_block=128,
-                                    interpret=True, use_mxu=False,
-                                    t_cap=cap, any_skip=False)
-        ta, tb = np.asarray(a.t)[0], np.asarray(b.t)[0]
-        cap_v = np.inf if cap is None else np.asarray(cap)[0]
-        valid = tb <= cap_v
-        assert valid.any()
-        for fa, fb in zip(a, b):
-            np.testing.assert_array_equal(np.asarray(fa)[:, valid],
-                                          np.asarray(fb)[:, valid])
-        assert np.all(ta >= tb)  # losing candidates can only push t up
-
-
-def test_any_skip_matches_on_mxu_path():
-    """Same gate contract on the production split-bf16 MXU sweep: the
-    gate compares its f32 slab interval against the bf16-limb winner t,
-    so this also exercises the _SKIP_SLOP guard band."""
-    scene = _mesh(3)
-    grid = build_tri_grid(scene, tile_rows=64)
-    o, d, tm = _rays(512, seed=41)
-    cap = jnp.full((1, 512), 3.0, jnp.float32)
-    a = hit_triangles_grid_rows(grid, o, d, tm, ray_block=128,
-                                interpret=True, use_mxu=True,
-                                t_cap=cap, any_skip=True)
-    b = hit_triangles_grid_rows(grid, o, d, tm, ray_block=128,
-                                interpret=True, use_mxu=True,
-                                t_cap=cap, any_skip=False)
-    ta, tb = np.asarray(a.t)[0], np.asarray(b.t)[0]
-    valid = tb <= np.asarray(cap)[0]
-    assert valid.any()
-    for fa, fb in zip(a, b):
-        np.testing.assert_array_equal(np.asarray(fa)[:, valid],
-                                      np.asarray(fb)[:, valid])
-    assert np.all(ta >= tb)
-
-
-def test_any_skip_matches_without_early_exit():
-    """any_skip composed with early_exit=False (the fori_loop sweep
-    path) — both sweep-loop variants carry the gate."""
-    scene = _mesh(3)
-    grid = build_tri_grid(scene, tile_rows=64)
-    o, d, tm = _rays(384, seed=37)
-    a = hit_triangles_grid_rows(grid, o, d, tm, ray_block=128,
-                                interpret=True, use_mxu=False,
-                                early_exit=False, any_skip=True)
-    b = hit_triangles_grid_rows(grid, o, d, tm, ray_block=128,
-                                interpret=True, use_mxu=False,
-                                early_exit=False, any_skip=False)
-    for fa, fb in zip(a, b):
-        np.testing.assert_array_equal(np.asarray(fa), np.asarray(fb))
-
-
-def test_sub_gate_matches_unconditional_sweep_exactly():
-    """The sub-block any-touch gate (cfg.tri_sub_gate, n_sub > 1): the
-    gate contract holds per sub-group — within each lane's effective
-    segment, results are bit-identical to the unconditional sweep on
-    BOTH sweep variants; beyond the cap the gate may only lose (junk)
-    candidates, so t is monotonically >=.  Also: more gate granularity
-    can only skip MORE, so t(n_sub=2) >= t(whole-block gate) too."""
-    scene = _mesh(3)
-    grid = build_tri_grid(scene, tile_rows=64)
-    o, d, tm = _rays(512, seed=43)
-    cap = jnp.full((1, 512), 2.5, jnp.float32)
-    for use_mxu in (False, True):
-        sub = hit_triangles_grid_rows(grid, o, d, tm, ray_block=256,
-                                      interpret=True, use_mxu=use_mxu,
-                                      t_cap=cap, any_skip=True, n_sub=2)
-        whole = hit_triangles_grid_rows(grid, o, d, tm, ray_block=256,
-                                        interpret=True, use_mxu=use_mxu,
-                                        t_cap=cap, any_skip=True, n_sub=1)
-        none = hit_triangles_grid_rows(grid, o, d, tm, ray_block=256,
-                                       interpret=True, use_mxu=use_mxu,
-                                       t_cap=cap, any_skip=False)
-        ts = np.asarray(sub.t)[0]
-        tw = np.asarray(whole.t)[0]
-        tn = np.asarray(none.t)[0]
-        valid = tn <= np.asarray(cap)[0]
-        assert valid.any()
-        for fs, fn in zip(sub, none):
-            np.testing.assert_array_equal(np.asarray(fs)[:, valid],
-                                          np.asarray(fn)[:, valid])
-        assert np.all(ts >= tw)
-        assert np.all(tw >= tn)
-
-
-def test_sub_gate_rejects_bad_block_split():
-    scene = _mesh(2)
-    grid = build_tri_grid(scene, tile_rows=64)
-    o, d, tm = _rays(256, seed=43)
-    with np.testing.assert_raises(ValueError):
-        hit_triangles_grid_rows(grid, o, d, tm, ray_block=256,
-                                interpret=True, any_skip=True, n_sub=4)
-
-
 def test_median_partition_exact_and_tighter():
     """The median-split partition (cfg.tri_partition='median') returns
     the same nearest hits as the Morton partition (tile membership only
@@ -418,7 +203,7 @@ def test_median_partition_exact_and_tighter():
     g_s = build_tri_grid(scene, tile_rows=64, partition="median")
     assert g_s is not None and g_s.n_tiles == g_m.n_tiles
     # membership: every active triangle exactly once
-    idxs = np.asarray(g_s.tile_attrs)[:, -2]
+    idxs = np.asarray(g_s.tile_attrs)[:, _T_IDX]
     real = idxs[np.asarray(g_s.tile_attrs)[:, 3:9].any(axis=1)]
     assert len(np.unique(real)) == int(np.asarray(scene.active).sum())
 
@@ -479,14 +264,16 @@ def test_sorted_tri_pass_matches_direct():
 def test_tri_rebin_render_matches_off_exactly():
     """tri_rebin='on' never permutes the path state, so the render is
     exactly the rebin-off image (unlike driver-level binning, which
-    permutes lanes and only matches statistically)."""
+    permutes lanes and only matches statistically).  Both arms run the
+    host loop (rebin needs it), so they compile the same step programs."""
     from win32_raytracer_tpu.persistent import render_image_persistent
     from win32_raytracer_tpu.config import RenderConfig
     from win32_raytracer_tpu.scene.builders import mesh_scene
 
     scene = mesh_scene(subdivisions=3)
     cfg = RenderConfig(width=32, height=16, samples=8, seed=5,
-                       backend="jnp", accel="grid", ray_binning="off")
+                       backend="jnp", accel="grid", ray_binning="off",
+                       one_shot="off")
     base = np.asarray(render_image_persistent(scene, None, cfg))
     reb = np.asarray(render_image_persistent(
         scene, None, cfg.replace(tri_rebin="on")))
@@ -578,43 +365,3 @@ def test_tri_knob_validation():
                         accel="grid", tri_dda_k=-1)
     with pytest.raises(ValueError, match="tri_dda_k"):
         get_hit_fn_rows_accel(cfg2, scene, None)
-
-
-def test_deferred_gather_bitwise_matches_fused():
-    """cfg.tri_gather='deferred' carries only the winner row INDEX and
-    gathers the 17 attribute rows after the sweep — same winner
-    selection (strict < across tiles, min sub-row on in-tile ties), so
-    every HitRecordRows field must match the fused in-kernel merge
-    BITWISE, with and without t_cap, on both kernel variants and under
-    the sub-group gate."""
-    scene = _mesh(3)
-    grid = build_tri_grid(scene, tile_rows=64)
-    o, d, tm = _rays(512, seed=11)
-    cap = jnp.full((1, 512), 2.5, jnp.float32)
-    for use_mxu in (False, True):
-        for t_cap in (None, cap):
-            for n_sub in (1, 2):
-                a = hit_triangles_grid_rows(
-                    grid, o, d, tm, ray_block=256, interpret=True,
-                    use_mxu=use_mxu, t_cap=t_cap, n_sub=n_sub,
-                    gather="fused")
-                b = hit_triangles_grid_rows(
-                    grid, o, d, tm, ray_block=256, interpret=True,
-                    use_mxu=use_mxu, t_cap=t_cap, n_sub=n_sub,
-                    gather="deferred")
-                for f, x, y in zip(a._fields, a, b):
-                    np.testing.assert_array_equal(
-                        np.asarray(x), np.asarray(y),
-                        err_msg=f"{f} (mxu={use_mxu}, cap="
-                                f"{t_cap is not None}, n_sub={n_sub})")
-
-
-def test_tri_gather_validation():
-    from win32_raytracer_tpu.config import RenderConfig
-    from win32_raytracer_tpu.kernels.dispatch import get_hit_fn_rows_accel
-
-    scene = _mesh(3)
-    cfg = RenderConfig(width=32, height=16, samples=4, backend="jnp",
-                       accel="grid", tri_gather="DEFERRED")
-    with pytest.raises(ValueError, match="tri_gather"):
-        get_hit_fn_rows_accel(cfg, scene, None)

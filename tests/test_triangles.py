@@ -112,27 +112,3 @@ def test_obj_roundtrip(tmp_path):
     v2, f2 = load_obj(str(p))
     np.testing.assert_allclose(v2, v, rtol=1e-6)
     np.testing.assert_array_equal(f2, f)
-
-
-def test_triangle_pallas_vs_jnp_oracle():
-    import jax
-    from win32_raytracer_tpu.kernels.tri_pallas import hit_triangles_pallas
-    interpret = jax.devices()[0].platform == "cpu"
-    verts, faces = icosphere_mesh((0, 0.5, 0), 1.0, subdivisions=2)
-    scene = build_triangle_scene(verts, faces, mat_id=mat.METAL,
-                                 albedo=(0.8, 0.7, 0.6), fuzz=0.1)
-    rng = np.random.default_rng(3)
-    n = 512
-    o = jnp.asarray(rng.uniform(-4, 4, (n, 3)), jnp.float32)
-    d = jnp.asarray(rng.uniform(-1, 1, (n, 3)), jnp.float32)
-    tm = jnp.zeros((n,))
-    rp = hit_triangles_pallas(scene, o, d, tm, ray_block=256,
-                              interpret=interpret)
-    rj = hit_triangles(scene, o, d, tm)
-    hp, hj = np.asarray(rp.hit), np.asarray(rj.hit)
-    assert (hp != hj).mean() < 2e-3
-    both = hp & hj
-    np.testing.assert_allclose(np.asarray(rp.t)[both], np.asarray(rj.t)[both],
-                               rtol=1e-4, atol=1e-5)
-    agree = np.asarray(rp.idx)[both] == np.asarray(rj.idx)[both]
-    assert agree.mean() > 0.999

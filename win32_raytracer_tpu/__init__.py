@@ -1,10 +1,10 @@
-"""win32_raytracer_tpu — a TPU-native path-tracing framework.
+"""win32_raytracer_tpu — a path-tracing framework in JAX for NVIDIA GPUs.
 
-A brand-new JAX/XLA/Pallas implementation of the capabilities of
+A JAX/XLA/Pallas implementation of the capabilities of
 jamesmcgill/win32-raytracer (Peter Shirley's *Ray Tracing in One Weekend*
 on Win32/AVX): lambertian/metal/dielectric materials, antialiasing, defocus
 blur, motion blur, the RTIOW test and final scenes, and tile-parallel
-rendering — redesigned wavefront-first for TPU hardware.
+rendering — redesigned wavefront-first for accelerators.
 
 Public surface::
 

@@ -3,8 +3,8 @@
 The reference tests every ray against every sphere (the brute-force AVX
 sweep, win32-raytracer/RayTracer.cpp:433-551).  That is also what our
 baseline kernels do, and at 512 spheres it is ~75% of render time.  This
-module cuts the candidate set the TPU way — with *block-uniform* control
-flow instead of per-ray divergence:
+module cuts the candidate set with *block-uniform* control flow instead of
+per-ray divergence:
 
 * Spheres are split into **globals** (large: the ground sphere, heroes —
   anything whose footprint spans many cells) and **gridded** (small), the
@@ -17,9 +17,13 @@ flow instead of per-ray divergence:
   nearest global hit (anything farther is occluded).  Footprints are
   reduced per ray-block (min/max), and a block tests a tile in pass B only
   if the block's footprint box overlaps the tile's AABB.
-* Pass B runs the same per-sphere quadratic as the brute kernels over the
+* Pass B runs the same per-sphere quadratic as the brute sweep over the
   unmasked tiles only, so the winning hit is numerically identical to the
-  brute-force sweep (tie-break caveat in :func:`merge_hits`).
+  brute-force sweep (tie-break caveat in :func:`merge_best`).
+
+The sweep here is plain XLA, so the mask proves the structure conservative
+rather than saving work; the renderer has no sphere-grid path
+(``accel="grid"`` on a sphere scene raises).
 
 Everything here is correctness-first conservative: a tile is skipped only
 if NO ray in the block can intersect its AABB at an unoccluded ``t``.
@@ -41,10 +45,6 @@ from .ops.hit import (
 )
 from .scene.spheres import SphereScene
 
-# Grid-tile attribute matrices carry one extra all-ones column so a single
-# one-hot MXU contraction also returns the "this tile won" flag (used to
-# merge the running best without any lane<->sublane transpose).
-GRID_ATTR_COLS = ATTR_COLS + 1  # 17: [.. ATTR_COLS fields .., ones]
 
 _BIG = np.float32(1e8)          # t / coordinate clamp for open footprints
 
@@ -54,13 +54,13 @@ class GridScene(NamedTuple):
 
     Drop-in ``scene`` argument for the render paths: ``scatter`` ignores
     scene fields (material params ride in the HitRecord), and the grid hit
-    functions consume the accel arrays.  ``base`` is untouched, so brute
-    kernels and the scene API keep working on ``gscene.base``.
+    functions consume the accel arrays.  ``base`` is untouched, so the
+    brute sweep and the scene API keep working on ``gscene.base``.
     """
 
     base: SphereScene
     glob_attrs: jnp.ndarray   # [Sg, ATTR_COLS] global spheres (orig. idx col)
-    tile_attrs: jnp.ndarray   # [T * St, GRID_ATTR_COLS] tiles, row-major
+    tile_attrs: jnp.ndarray   # [T * St, ATTR_COLS] tiles, row-major
     tile_boxes: jnp.ndarray   # [T, 4] f32: x_lo, x_hi, z_lo, z_hi
     y_slab: jnp.ndarray       # [2] f32: y_lo, y_hi over all gridded spheres
 
@@ -92,8 +92,6 @@ def _attr_rows(scene_np: dict, sel: np.ndarray, cols: int) -> np.ndarray:
     out[:, _A_FUZZ] = scene_np["fuzz"][sel]
     out[:, _A_IOR] = scene_np["ior"][sel]
     out[:, _A_IDX] = sel
-    if cols > ATTR_COLS:
-        out[:, ATTR_COLS] = 1.0  # ones column (winner flag via MXU)
     return out
 
 
@@ -106,8 +104,6 @@ def _pad_rows(rows: np.ndarray, to: int) -> np.ndarray:
     filler = np.zeros((pad, rows.shape[1]), np.float32)
     filler[:, _A_C1X + 1] = -1.0e8   # park below everything
     filler[:, _A_INVDT] = 1.0
-    if rows.shape[1] > ATTR_COLS:
-        filler[:, ATTR_COLS] = 1.0
     return np.concatenate([rows, filler], axis=0)
 
 
@@ -186,13 +182,13 @@ def build_grid_accel(
         return None
 
     n_t = tx * tz
-    tiles = np.zeros((n_t, st, GRID_ATTR_COLS), np.float32)
+    tiles = np.zeros((n_t, st, ATTR_COLS), np.float32)
     boxes = np.zeros((n_t, 4), np.float32)
     for t in range(n_t):
         # Increasing original index inside each tile => within-tile ties
         # resolve to the earliest index, like the brute sweep.
         sel = gridded[tid == t]
-        rows = _attr_rows(sc, sel, GRID_ATTR_COLS)
+        rows = _attr_rows(sc, sel, ATTR_COLS)
         tiles[t] = _pad_rows(rows, st)
         if len(sel):
             m = np.isin(gridded, sel)
@@ -210,7 +206,7 @@ def build_grid_accel(
     out = GridScene(
         base=scene,
         glob_attrs=jnp.asarray(gl),
-        tile_attrs=jnp.asarray(tiles.reshape(n_t * st, GRID_ATTR_COLS)),
+        tile_attrs=jnp.asarray(tiles.reshape(n_t * st, ATTR_COLS)),
         tile_boxes=jnp.asarray(boxes),
         y_slab=jnp.asarray(np.array([y_lo, y_hi], np.float32)),
     )
@@ -272,7 +268,8 @@ def footprint_block_mask(
 
 def _sweep_attr_rows(attrs, origin, direction, time, min_t):
     """Nearest hit of [N] rays against attribute rows [S, C]; returns
-    (t [N], row [N, C]).  Same quadratic/one-hot math as ops.hit."""
+    (t [N], row [N, C]) — on a miss the row of index 0.  Same quadratic
+    and first-occurrence argmin as ops.hit."""
     ox, oy, oz = origin[:, 0:1], origin[:, 1:2], origin[:, 2:3]
     dx, dy, dz = direction[:, 0:1], direction[:, 1:2], direction[:, 2:3]
     a = dx * dx + dy * dy + dz * dz
@@ -292,9 +289,7 @@ def _sweep_attr_rows(attrs, origin, direction, time, min_t):
     t = jnp.where(valid, t, F32_MAX)
 
     t_min = jnp.min(t, axis=1)                           # [N]
-    eq = (t == t_min[:, None]).astype(jnp.float32)
-    onehot = eq * (jnp.cumsum(eq, axis=1) == 1.0)
-    row = jnp.dot(onehot, attrs, preferred_element_type=jnp.float32)
+    row = jnp.take(attrs, jnp.argmin(t, axis=1), axis=0)
     return t_min, row
 
 
@@ -340,13 +335,9 @@ def hit_spheres_grid_jnp(
     min_t: float = MIN_HIT_T,
     ray_block: int = 512,
 ) -> HitRecord:
-    """Pure-jnp grid hit — the oracle for the Pallas grid kernel, and the
-    CPU-testable proof that footprint masking is conservative (it must be
-    bit-identical to the brute sweep up to the tie rule).
-
-    Masked tiles are *computed then discarded* here (jnp can't skip);
-    only the Pallas version converts the mask into real savings.
-    """
+    """Grid hit — the proof that footprint masking is conservative (it
+    must be bit-identical to the brute sweep up to the tie rule).  Masked
+    tiles are *computed then discarded* here."""
     n = origin.shape[0]
     pad = (-n) % ray_block
     if pad:
@@ -369,7 +360,7 @@ def hit_spheres_grid_jnp(
     lane_mask = jnp.repeat(mask, ray_block, axis=0)      # [Np, T]
 
     best_t = jnp.full((origin_p.shape[0],), F32_MAX)
-    best_row = jnp.zeros((origin_p.shape[0], GRID_ATTR_COLS), jnp.float32)
+    best_row = jnp.zeros((origin_p.shape[0], ATTR_COLS), jnp.float32)
     for t_i in range(n_t):
         attrs = gscene.tile_attrs[t_i * st:(t_i + 1) * st]
         tt, trow = _sweep_attr_rows(attrs, origin_p, direction_p, time_p,
@@ -381,6 +372,6 @@ def hit_spheres_grid_jnp(
 
     t_m, row_m = merge_best(t_g, row_g,
                             best_t[:origin_p.shape[0]],
-                            best_row[:, :ATTR_COLS])
+                            best_row)
     return assemble_hit_record(origin, direction, time,
                                t_m[:n], row_m[:n])

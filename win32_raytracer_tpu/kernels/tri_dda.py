@@ -2,9 +2,8 @@
 
 The two-phase re-bin (tri_rebin.py) tightens per-block tile unions, but
 every lane still pays its whole block's schedule; on real bounce
-snapshots that WITHIN-block waste leaves ~30x of the 92x per-ray ideal
-on the table (bench/tri_knob_sim.py --ideal / --capped).  This module
-takes the next step the TPU way — still no new kernels:
+snapshots that WITHIN-block waste leaves most of the per-ray ideal on
+the table.  This module takes the next step — still plain XLA:
 
 1. march each lane's occlusion-capped chord through a G^3 macro-cell
    grid over the scene box (fixed-K DDA, all static shapes)
@@ -12,21 +11,16 @@ takes the next step the TPU way — still no new kernels:
    lane; lanes whose chord visits more than K cells fall back to one
    full-segment pair (conservative, never wrong)
 3. sort the K*N pair working set by cell id (dead pairs last) and run
-   the EXISTING grid kernel on it: each ray block now covers ~one
+   the EXISTING grid sweep on it: each ray block now covers ~one
    cell, so its conservative union is that cell's tiles, not a
    degenerate chord-union
-4. shift each pair's origin to its interval start so the kernel's
+4. shift each pair's origin to its interval start so the sweep's
    [min_t, cap] window IS the interval (t corrected back after), then
    merge the K slots per lane by nearest-t and unsort by lane index
 
-Offline prediction at G=8 (tri_knob_sim --dda, corrected model:
-overflow pairs keyed by their first cell, as dda_pairs emits them):
-only ~1.18x less modeled pair+merge cost than the capped-key block
-scheme at matched knobs (K=12, St=16, RB=128), and modeled LOSSES at
-K=4 or RB=512 where overflow/duplicate-merge costs dominate — most of
-the earlier claimed win belonged to RB=128/St=16 themselves, which
-help the capped sort too.  cfg.tri_dda_k picks K; the chip prices the
-per-block fixed costs the pair-count model can't see (tpu_jobs 439).
+cfg.tri_dda_k picks K.  The sweep computes every tile and discards the
+masked ones, so on the GPU this is a structure to build a culling
+triangle kernel on, not a speed-up; its speed is not measured.
 
 Exactness: every pair's mask window covers its chord interval, the
 intervals tile the capped chord, and the winning hit lies in one of

@@ -1,18 +1,15 @@
 """Two-phase triangle pass: occlusion-capped working-set re-binning.
 
-The block-schedule grid kernel (tri_grid_rows.py) culls tiles per RAY
-BLOCK: a tile is swept when the union of the block's clipped t-segments
-reaches its AABB.  The driver-level lane sort (persistent._bin_sort)
+The triangle grid (tri_accel.py) culls tiles per RAY BLOCK: a tile is
+admitted when the union of the block's clipped t-segments reaches its
+AABB.  The driver-level lane sort (persistent._bin_sort)
 runs BEFORE the hit phase, so the sphere pass's occlusion — which caps
 most segments to tiny lengths or kills them outright — is invisible to
 the sort key; short-capped lanes mix with genuine mesh-goers and every
-block's conservative union degenerates.  Measured on real bounce
-snapshots (bench/tri_knob_sim.py --ideal): per-ray exact tile-touch
-pair work is ~92x below the block-union schedule lane-weighted.
+block's conservative union degenerates.
 
-This module restructures the composite hit phase the TPU way — no new
-kernels, two extra multi-operand lax.sorts around the existing tri
-kernel:
+This module restructures the composite hit phase with two extra
+multi-operand lax.sorts around the existing triangle grid sweep:
 
 1. sphere pass over ALL lanes (unchanged) -> rec_s
 2. key every lane by (origin cell, occlusion-CAPPED chord-exit cell,
@@ -21,13 +18,13 @@ kernel:
    schedules ~zero tiles
 3. lax.sort the triangle WORKING SET only (o, d, t_cap, lane index —
    8 rows, not the 19-row path state)
-4. tri grid kernel on the sorted set (tight per-block unions)
-5. lax.sort the hit record back by lane index (a sort IS the
-   TPU-friendly inverse permutation), combine with rec_s
+4. tri grid sweep on the sorted set (tight per-block unions)
+5. lax.sort the hit record back by lane index (the inverse
+   permutation), combine with rec_s
 
 Because the PATH STATE is never permuted, per-lane RNG streams are
-untouched: renders match the rebin-off path exactly (up to the grid
-kernel's cross-tile tie rule), unlike driver-level binning whose lane
+untouched: renders match the rebin-off path exactly (up to the grid's
+cross-tile tie rule), unlike driver-level binning whose lane
 permutation changes sample streams statistically.
 
 Reference parity: this replaces the reference's per-ray recursive
@@ -78,9 +75,7 @@ def capped_chord_keys(scene_box, o, d, t_cap, min_t=0.001):
     hi_c = jnp.maximum(hi_t, 0.0)
     lo_c = jnp.maximum(lo_t, 0.0)
     # Box-ENTRY point, not raw origin: lanes starting far outside the
-    # grid box land in the cell where their chord actually begins
-    # (sim: capped+entry 0.76x vs capped-origin 0.78x lane-weighted,
-    # bench/tri_knob_sim.py --capped).
+    # grid box land in the cell where their chord actually begins.
     entry_p = [o[ax] + lo_c * d[ax] for ax in range(3)]
     exit_p = [o[ax] + hi_c * d[ax] for ax in range(3)]
     octant = ((d[0] < 0).astype(jnp.int32)
@@ -95,8 +90,7 @@ def sorted_tri_pass(tri_fn, grid, o, d, time, t_cap, min_t=0.001):
     """Run ``tri_fn(grid, o, d, time, min_t=, t_cap=)`` on the working
     set sorted by capped chord key; return the HitRecordRows in the
     ORIGINAL lane order.  ``t_cap`` [1, N] (sphere-pass nearest t or
-    +inf).  ``tri_fn`` is any rows-record tri grid function (the Pallas
-    kernel or the jnp oracle)."""
+    +inf).  ``tri_fn`` is any rows-record tri grid function."""
     n = o.shape[1]
     keys = capped_chord_keys(grid.scene_box, o, d, t_cap[0], min_t=min_t)
     idx = jnp.arange(n, dtype=jnp.int32)
@@ -134,7 +128,7 @@ def sorted_tri_pass(tri_fn, grid, o, d, time, t_cap, min_t=0.001):
         rest = rest[rows_n:]
         stacked = jnp.stack(rows) if rows_n > 1 else rows[0][None]
         cols[f] = stacked.astype(dt) if dt == jnp.bool_ else stacked
-    # Same miss convention as the kernel epilogue (t_safe = 0 -> origin).
+    # Same miss convention as the hit epilogue (t_safe = 0 -> origin).
     t_safe = jnp.where(cols["hit"], cols["t"], 0.0)
     cols["point"] = o + t_safe * d
     return HitRecordRows(**cols)

@@ -2,8 +2,8 @@
 
 Möller-Trumbore over SoA triangle tiles, structured exactly like the sphere
 sweep (ops/hit.py): lax.scan over lane-width tiles, min + first-occurrence
-one-hot winner, packed [tile, 16] attribute rows fetched with one MXU
-contraction.  Two-sided (no backface culling) so dielectric meshes work;
+argmin winner, whose packed [16] attribute row is fetched by an exact
+gather and carried across tiles.  Two-sided (no backface culling) so dielectric meshes work;
 the shading normal is the unit geometric normal, with entering/exiting
 resolved by the material math like the sphere path.
 
@@ -66,7 +66,7 @@ def hit_triangles(
     assert s % tile == 0, (s, tile)
     k = s // tile
 
-    attrs = tri_attr_matrix(scene).reshape(k, tile, TRI_ATTR_COLS)
+    tiles = tri_attr_matrix(scene).reshape(k, tile, TRI_ATTR_COLS)
     active = scene.active.astype(jnp.float32).reshape(k, tile)
 
     ox, oy, oz = origin[:, 0:1], origin[:, 1:2], origin[:, 2:3]
@@ -107,15 +107,13 @@ def hit_triangles(
         t = jnp.where(valid, t, F32_MAX)
 
         tile_t = jnp.min(t, axis=1)
-        eq = (t == tile_t[:, None]).astype(jnp.float32)
-        onehot = eq * (jnp.cumsum(eq, axis=1) == 1.0)
-        sel = jnp.dot(onehot, tl, preferred_element_type=jnp.float32)
+        sel = jnp.take(tl, jnp.argmin(t, axis=1), axis=0)
 
         better = tile_t < best_t
         return (jnp.where(better, tile_t, best_t),
                 jnp.where(better[:, None], sel, best_a)), None
 
-    (best_t, best_a), _ = jax.lax.scan(body, init, (attrs, active))
+    (best_t, best_a), _ = jax.lax.scan(body, init, (tiles, active))
 
     hit = best_t < F32_MAX
     t_safe = jnp.where(hit, best_t, 0.0)
@@ -161,12 +159,7 @@ def combine_hits(a: HitRecord, b: HitRecord, idx_offset_b: int = 0) -> HitRecord
 def tri_record_rows_from_gather(o, d, t_out, g):
     """HitRecordRows assembly from a rows winner-gather: ``t_out``
     [1, N] nearest t (F32_MAX miss), ``g`` the winner's attr rows
-    ([TRI_ATTR_COLS+, N], _T_* layout).  The SHARED epilogue of the
-    Pallas grid kernel (kernels/tri_grid_rows.hit_triangles_grid_rows)
-    and its jnp oracle (tri_accel.hit_triangles_grid_rows_jnp): the two
-    paths must stay numerically identical for their parity tests to
-    validate the kernel, so the hit flag, point, cross-product normal,
-    and attribute slicing exist exactly once."""
+    ([TRI_ATTR_COLS, N], _T_* layout)."""
     from .rows import HitRecordRows
 
     hit = t_out < F32_MAX

@@ -3,7 +3,7 @@
 The batched, masked-lane equivalent of the material branches inside the
 reference's recursive ``getColor`` (win32-raytracer/RayTracer.cpp:604-688).
 All three materials are evaluated for every lane and the results selected by
-material id — branchless, the TPU way.  Semantics preserved exactly:
+material id — branchless, as wide hardware wants it.  Semantics preserved exactly:
 
 * Lambertian (RayTracer.cpp:604-617): target = hit + normal + ball-point;
   origin offset by EPSILON along the normal; attenuation = albedo.
@@ -48,8 +48,7 @@ def scatter(
 
     ``draws`` is [N, 4]: 3 uniforms for the unit-ball sample + 1 for the
     dielectric reflect decision.  Material params ride in the HitRecord
-    (selected during the hit sweep — no gathers; gathers are pathologically
-    slow on the target TPU runtime).
+    (selected during the hit sweep, so scatter reads no scene arrays).
     """
     eps = jnp.float32(cfg.epsilon)
     mat_id, albedo, fuzz, ior = hit.mat_id, hit.albedo, hit.fuzz, hit.ior

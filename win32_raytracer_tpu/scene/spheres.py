@@ -25,7 +25,7 @@ import jax.numpy as jnp
 
 from ..core import materials as mat
 
-LANE_PAD = 128  # TPU lane width; pad sphere count to a multiple of this.
+LANE_PAD = 128  # sphere tile width of the plain sweep (ops/hit.py).
 
 
 class SphereScene(NamedTuple):

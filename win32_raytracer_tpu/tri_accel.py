@@ -1,9 +1,8 @@
 """Uniform-grid (Morton-tiled) acceleration for the triangle sweep.
 
-The brute MXU Möller-Trumbore kernel (kernels/tri_pallas_mxu.py) tests
-every ray against every triangle — fine at the round-1 demo's ~300 tris,
-hopeless at bunny scale (BASELINE config 4 asks for a >=10k-triangle
-mesh; round-1 VERDICT item 3).  This is the triangle analogue of the
+The brute Möller-Trumbore sweep (ops/hit_tri.py) tests every ray against
+every triangle, which scales linearly in triangle count (BASELINE config 4
+asks for a >=10k-triangle mesh).  This is the triangle analogue of the
 sphere grid (accel.py), with the same block-uniform control flow:
 
 * Triangles are sorted by the **Morton code** of their centroid, then cut
@@ -16,14 +15,15 @@ sphere grid (accel.py), with the same block-uniform control flow:
   composite scene — occludes anything farther); the surviving t-segment
   sweeps a per-ray 3D box.
 * Per ray **block**: min/max-reduce the ray boxes, then test the block
-  box against every tile AABB — a [NB, T] conservative mask.  The Pallas
-  kernel (kernels/tri_grid_rows.py) turns the mask into a per-block
-  schedule and sweeps only active tiles.
+  box against every tile AABB — a [NB, T] conservative mask.
 
 Conservative by construction: a tile is skipped only when NO ray in the
 block can reach its AABB at an unoccluded t.  The winning hit is
 numerically identical to the brute sweep up to the cross-tile tie rule
-(tile visit order; measure-zero for real geometry).
+(tile visit order; measure-zero for real geometry).  The sweep here is
+plain XLA: it computes masked tiles and discards them, so the mask
+verifies the structure (and feeds the rebin/DDA sort keys) rather than
+saving work.
 """
 
 from __future__ import annotations
@@ -42,11 +42,6 @@ from .ops.hit_tri import (
 from .ops.hit import F32_MAX
 from .scene.triangles import TriangleScene
 
-# Tile attribute rows carry one extra all-ones column (like the sphere
-# grid): the one-hot MXU gather then also returns the per-lane "this tile
-# won" flag, so the kernel's carry merge needs no transpose.
-TRI_GRID_COLS = TRI_ATTR_COLS + 1  # 17
-
 _BIG = np.float32(1e8)
 
 
@@ -55,19 +50,10 @@ class TriGridScene(NamedTuple):
 
     Drop-in ``scene`` for the render paths (scatter ignores scene fields;
     material params ride in the HitRecord).  ``base`` is untouched so the
-    brute kernels and oracles keep working on it.
-
-    ``tile_coeffs`` carries each tile's four Möller-Trumbore coefficient
-    matrices (det/u_num/v_num/t_num, tri_pallas_mxu.tri_coeff_matrices)
-    limb-stacked to bf16 and CONCATENATED ALONG ROWS — all four multiply
-    the same 16-feature ray stack, so a tile's whole sweep is ONE
-    [4*St, K] x [K, R] MXU contraction (~20x fewer VPU slots per pair
-    than the scalar MT arithmetic; measured 1.27 Mrays/s VPU-swept vs
-    the sphere path's 40+ at similar candidate counts)."""
+    brute sweep keeps working on it."""
 
     base: TriangleScene
-    tile_attrs: jnp.ndarray   # [T * St, TRI_GRID_COLS], tile-major
-    tile_coeffs: jnp.ndarray  # [T * 4 * St, K] bf16 limb stacks
+    tile_attrs: jnp.ndarray   # [T * St, TRI_ATTR_COLS], tile-major
     tile_boxes: jnp.ndarray   # [T, 6] f32: x0, x1, y0, y1, z0, z1
     scene_box: jnp.ndarray    # [6] f32 union of tile boxes
 
@@ -101,12 +87,10 @@ def _morton3(x: np.ndarray, y: np.ndarray, z: np.ndarray) -> np.ndarray:
 
 
 # Built grids memoized by the identity of the TriangleScene: the hit
-# dispatcher resolves accel per render call, and the host-side build
-# (321-tile Python loop + limb stacking) costs ~2.3 s at 20k tris on the
-# 1-core driver host — per-call rebuilds dominated mesh render reps
-# (job 236: 3.58 s wall of which ~2.3 s was rebuild).  Values hold a
-# strong ref to the scene (grid.base), so the id key cannot be reused
-# while the entry lives; bounded FIFO.
+# dispatcher resolves accel per render call, and the host-side build is a
+# Python loop over tiles.  Values hold a strong ref to the scene
+# (grid.base), so the id key cannot be reused while the entry lives;
+# bounded FIFO.
 _GRID_CACHE: dict = {}
 _GRID_CACHE_MAX = 8
 
@@ -139,10 +123,6 @@ def _median_split_order(cen: np.ndarray, st: int) -> np.ndarray:
     return out
 
 
-# tile_rows default: fewer, fatter tiles won every interleaved rep at the
-# config-4 shape (tpu_jobs 593b: St=128 1.74-1.81 s vs St=64 2.01-2.06;
-# St=256 already past the culling-coarseness peak).  Exported so the
-# dispatch layer's tri_sub_gate auto rule can see the effective height.
 DEFAULT_TILE_ROWS = 128
 
 
@@ -153,19 +133,11 @@ def build_tri_grid(
     partition: str = "morton",
 ) -> Optional[TriGridScene]:
     """Build a :class:`TriGridScene`, or None when the mesh is too small
-    to benefit (the brute MXU sweep wins below ~min_tris).  Memoized on
-    the scene object's identity (see _GRID_CACHE).  ``partition``:
-    "morton" (centroid space-filling-curve cuts) or "median" (recursive
-    widest-axis median splits — tighter tile AABBs; see
-    _median_split_order).
-
-    ``tile_rows`` default 128: the chip sweep at mesh20k 800x450@50
-    (tpu_jobs 593b, interleaved) measured St=128 at 1.74 s vs St=64's
-    2.01 s (+16%) and St=256 at 1.85 — per-tile fixed costs (schedule
-    rows, tlo sort keys, gate branches, merge epilogues) dominate the
-    2x-coarser culling, and 4*128 = 512 contraction rows = 4 full MXU
-    passes with zero padding.  Every smaller-St point (16/32/64) lost
-    on chip (tpu_jobs 540/542/576)."""
+    to benefit (below ``min_tris`` the brute sweep is as cheap).
+    Memoized on the scene object's identity (see _GRID_CACHE).
+    ``partition``: "morton" (centroid space-filling-curve cuts) or
+    "median" (recursive widest-axis median splits — tighter tile AABBs;
+    see _median_split_order)."""
     key = (id(scene), tile_rows, min_tris, partition)
     cached = _GRID_CACHE.get(key)
     if cached is not None and cached.base is scene:
@@ -197,7 +169,7 @@ def build_tri_grid(
 
     st = tile_rows
     n_t = -(-len(sel) // st)
-    attrs = np.zeros((n_t, st, TRI_GRID_COLS), np.float32)
+    attrs = np.zeros((n_t, st, TRI_ATTR_COLS), np.float32)
     boxes = np.empty((n_t, 6), np.float32)
 
     sc = {f: np.asarray(getattr(scene, f))[sel] for f in
@@ -206,7 +178,7 @@ def build_tri_grid(
         mem = order[t * st:(t + 1) * st]
         mem = mem[np.argsort(sel[mem], kind="stable")]  # earliest-idx ties
         m = len(mem)
-        rows = np.zeros((m, TRI_GRID_COLS), np.float32)
+        rows = np.zeros((m, TRI_ATTR_COLS), np.float32)
         rows[:, _T_V0X:_T_V0X + 3] = sc["v0"][mem]
         rows[:, _T_E1X:_T_E1X + 3] = sc["e1"][mem]
         rows[:, _T_E2X:_T_E2X + 3] = sc["e2"][mem]
@@ -215,11 +187,8 @@ def build_tri_grid(
         rows[:, _T_FUZZ] = sc["fuzz"][mem]
         rows[:, _T_IOR] = sc["ior"][mem]
         rows[:, _T_IDX] = sel[mem]
-        rows[:, TRI_ATTR_COLS] = 1.0
-        # Padding rows: e1 = e2 = 0 -> det = 0 -> rejected; ones column
-        # stays 1 so a (never-occurring) padded win still merges sanely.
+        # Padding rows: e1 = e2 = 0 -> det = 0 -> rejected.
         attrs[t, :m] = rows
-        attrs[t, m:, TRI_ATTR_COLS] = 1.0
         boxes[t] = (lo[mem][:, 0].min(), hi[mem][:, 0].max(),
                     lo[mem][:, 1].min(), hi[mem][:, 1].max(),
                     lo[mem][:, 2].min(), hi[mem][:, 2].max())
@@ -228,31 +197,9 @@ def build_tri_grid(
                      boxes[:, 2].min(), boxes[:, 3].max(),
                      boxes[:, 4].min(), boxes[:, 5].max()], np.float32)
 
-    # MT coefficient matrices in tile order, limb-stacked to bf16 and
-    # row-concatenated per tile: [T, 4, st, K] -> [T*4*st, K].
-    from .kernels.hit_pallas_v6 import stack_coeff_limbs
-    from .kernels.tri_pallas_mxu import _N_TERMS_TRI, tri_coeff_matrices
-    mats = tri_coeff_matrices(scene)     # 4 x [Tpad, 16] (jnp)
-    sel_rows = np.full(n_t * st, -1, np.int64)
-    for t in range(n_t):
-        mem = order[t * st:(t + 1) * st]
-        mem = mem[np.argsort(sel[mem], kind="stable")]
-        sel_rows[t * st:t * st + len(mem)] = sel[mem]
-    per_mat = []
-    for m in mats:
-        m_np = np.asarray(m)
-        rows = np.where(sel_rows[:, None] >= 0,
-                        m_np[np.maximum(sel_rows, 0)], 0.0).astype(np.float32)
-        per_mat.append(np.asarray(
-            stack_coeff_limbs(jnp.asarray(rows), _N_TERMS_TRI)))
-    k = per_mat[0].shape[1]
-    coeffs = np.stack([p.reshape(n_t, st, k) for p in per_mat],
-                      axis=1).reshape(n_t * 4 * st, k)
-
     grid = TriGridScene(
         base=scene,
-        tile_attrs=jnp.asarray(attrs.reshape(n_t * st, TRI_GRID_COLS)),
-        tile_coeffs=jnp.asarray(coeffs),
+        tile_attrs=jnp.asarray(attrs.reshape(n_t * st, TRI_ATTR_COLS)),
         tile_boxes=jnp.asarray(boxes),
         scene_box=jnp.asarray(sbox),
     )
@@ -266,7 +213,7 @@ def clip_segment_to_box(scene_box, origin, direction, t_cap=None,
                         min_t=0.001):
     """(lo_t, hi_t) [N] of each ray's [min_t, t_cap]-clipped chord
     through the [6] scene AABB (eps-guarded slab test; hi_t < lo_t =
-    no touch).  THE touch classification — shared by the block schedule
+    no touch).  THE touch classification — shared by the block mask
     below, the rebin sort keys (kernels/tri_rebin.capped_chord_keys),
     and the DDA pair expansion (kernels/tri_dda.dda_pairs): the rebin
     packing argument needs the key's no-touch set to agree with the
@@ -288,81 +235,6 @@ def clip_segment_to_box(scene_box, origin, direction, t_cap=None,
     return lo_t, hi_t
 
 
-def tri_block_schedule_rows(
-    grid: TriGridScene,
-    origin: jnp.ndarray,      # [3, Np] (padded to a ray_block multiple)
-    direction: jnp.ndarray,   # [3, Np]
-    t_cap: Optional[jnp.ndarray],  # [1, Np] occluding t or None
-    min_t: float,
-    ray_block: int,
-):
-    """Conservative per-block tile schedule inputs.
-
-    Returns ``(mask, tlo, cap_eff)``:
-
-    * ``mask`` [Np/ray_block, T] int32 — 1 where the block must sweep the
-      tile.  Per ray: slab-test against the scene AABB -> [t_in, t_out],
-      clipped to [min_t, t_cap]; the segment's 3D box; per block min/max;
-      per (block, tile) 3D overlap.
-    * ``tlo`` [Np/ray_block, T] f32 — a LOWER bound on the ray parameter
-      t at which ANY ray of the block can first touch the tile:
-      ``dist(block origin box, tile box) / max |d| in block``.  Sorting a
-      block's schedule by ``tlo`` ascending makes the sweep front-to-back,
-      so the kernel may STOP once every lane's current best t (clipped to
-      its segment end) is nearer than the next tile's bound — exact, no
-      hit can be lost (any hit in a later tile has t >= its tlo).
-    * ``cap_eff`` [1, Np] f32 — each lane's segment end ``hi_t`` (0 for
-      empty lanes): a lane cannot hit beyond where it exits the scene box
-      (or beyond an occluding t_cap), so the early-exit reduction uses
-      ``min(best_t, cap_eff)`` and miss-everything lanes don't pin the
-      block to a full sweep."""
-    n = origin.shape[1]
-    nb = n // ray_block
-    eps = np.float32(1e-12)
-    lo_t, hi_t = clip_segment_to_box(
-        grid.scene_box, origin, direction,
-        t_cap=None if t_cap is None else t_cap[0], min_t=min_t)
-    empty = lo_t > hi_t
-
-    mins, maxs = [], []
-    o_mins, o_maxs = [], []
-    for ax in range(3):
-        o, d = origin[ax], direction[ax]
-        pa, pb = o + lo_t * d, o + hi_t * d
-        mins.append(jnp.where(empty, _BIG, jnp.minimum(pa, pb))
-                    .reshape(nb, ray_block).min(axis=1))
-        maxs.append(jnp.where(empty, -_BIG, jnp.maximum(pa, pb))
-                    .reshape(nb, ray_block).max(axis=1))
-        o_mins.append(jnp.where(empty, _BIG, o)
-                      .reshape(nb, ray_block).min(axis=1))
-        o_maxs.append(jnp.where(empty, -_BIG, o)
-                      .reshape(nb, ray_block).max(axis=1))
-
-    bx = grid.tile_boxes                                  # [T, 6]
-    overlap = ((mins[0][:, None] <= bx[None, :, 1])
-               & (maxs[0][:, None] >= bx[None, :, 0])
-               & (mins[1][:, None] <= bx[None, :, 3])
-               & (maxs[1][:, None] >= bx[None, :, 2])
-               & (mins[2][:, None] <= bx[None, :, 5])
-               & (maxs[2][:, None] >= bx[None, :, 4]))
-
-    d2 = (direction[0] * direction[0] + direction[1] * direction[1]
-          + direction[2] * direction[2])
-    dmax = jnp.sqrt(jnp.where(empty, 0.0, d2)
-                    .reshape(nb, ray_block).max(axis=1))  # [NB]
-    dist2 = jnp.zeros((nb, grid.n_tiles), jnp.float32)
-    for ax in range(3):
-        gap = jnp.maximum(
-            0.0, jnp.maximum(bx[None, :, 2 * ax] - o_maxs[ax][:, None],
-                             o_mins[ax][:, None] - bx[None, :, 2 * ax + 1]))
-        dist2 = dist2 + gap * gap
-    tlo = jnp.maximum(jnp.sqrt(dist2)
-                      / jnp.maximum(dmax, eps)[:, None],
-                      np.float32(min_t))
-    cap_eff = jnp.where(empty, 0.0, hi_t)[None, :]
-    return overlap.astype(jnp.int32), tlo, cap_eff
-
-
 def tri_block_mask_rows(
     grid: TriGridScene,
     origin: jnp.ndarray,      # [3, Np] (padded to a ray_block multiple)
@@ -371,18 +243,40 @@ def tri_block_mask_rows(
     min_t: float,
     ray_block: int,
 ) -> jnp.ndarray:
-    """[Np/ray_block, T] int32 conservative block mask (schedule without
-    the front-to-back ordering metadata; see tri_block_schedule_rows)."""
-    mask, _, _ = tri_block_schedule_rows(
-        grid, origin, direction, t_cap, min_t, ray_block)
-    return mask
+    """[Np/ray_block, T] int32 conservative block mask: 1 where the block
+    must sweep the tile.  Per ray: slab-test against the scene AABB ->
+    [t_in, t_out], clipped to [min_t, t_cap]; the segment's 3D box; per
+    block min/max; per (block, tile) 3D overlap."""
+    n = origin.shape[1]
+    nb = n // ray_block
+    lo_t, hi_t = clip_segment_to_box(
+        grid.scene_box, origin, direction,
+        t_cap=None if t_cap is None else t_cap[0], min_t=min_t)
+    empty = lo_t > hi_t
+
+    mins, maxs = [], []
+    for ax in range(3):
+        o, d = origin[ax], direction[ax]
+        pa, pb = o + lo_t * d, o + hi_t * d
+        mins.append(jnp.where(empty, _BIG, jnp.minimum(pa, pb))
+                    .reshape(nb, ray_block).min(axis=1))
+        maxs.append(jnp.where(empty, -_BIG, jnp.maximum(pa, pb))
+                    .reshape(nb, ray_block).max(axis=1))
+
+    bx = grid.tile_boxes                                  # [T, 6]
+    overlap = ((mins[0][:, None] <= bx[None, :, 1])
+               & (maxs[0][:, None] >= bx[None, :, 0])
+               & (mins[1][:, None] <= bx[None, :, 3])
+               & (maxs[1][:, None] >= bx[None, :, 2])
+               & (mins[2][:, None] <= bx[None, :, 5])
+               & (maxs[2][:, None] >= bx[None, :, 4]))
+    return overlap.astype(jnp.int32)
 
 
 def _sweep_tile_rows(tl, ox, oy, oz, dx, dy, dz, min_t):
     """Möller-Trumbore of [R]-rows rays against one [St, C] tile;
     returns the valid-hit t matrix [St, R] (F32_MAX where invalid — the
-    caller reduces/argmins it).  Shared math of the jnp oracle below
-    and the Pallas kernel."""
+    caller reduces/argmins it)."""
     def col(c):
         return tl[:, c:c + 1]                             # [St, 1]
 
@@ -417,10 +311,11 @@ def hit_triangles_grid_jnp(
     ray_block: int = 512,
     t_cap: Optional[jnp.ndarray] = None,
 ):
-    """Pure-jnp grid sweep — the CPU-testable oracle proving the mask is
-    conservative (must match the brute sweep up to the tie rule).  Masked
-    tiles are computed then discarded here; only the Pallas kernel
-    converts the mask into savings.  Returns (t [1, N], g [17, N])."""
+    """Grid sweep: the brute Möller-Trumbore over every tile, with each
+    tile's result kept only on lanes whose block mask admits the tile
+    (must match the brute sweep up to the tie rule — the proof that the
+    mask is conservative).  Returns (t [1, N], winner attribute rows
+    g [TRI_ATTR_COLS, N], zeros on a miss)."""
     del time
     n = origin.shape[1]
     pad = (-n) % ray_block
@@ -431,29 +326,27 @@ def hit_triangles_grid_jnp(
         if t_cap is not None:
             t_cap = jnp.pad(t_cap, ((0, 0), (0, pad)))
     mask = tri_block_mask_rows(grid, o, d, t_cap, float(min_t), ray_block)
-    lane_mask = jnp.repeat(mask, ray_block, axis=0).T     # [1?, Np] rows
+    lane_mask = jnp.repeat(mask, ray_block, axis=0).T     # [T, Np]
     ox, oy, oz = o[0:1], o[1:2], o[2:3]
     dx, dy, dz = d[0:1], d[1:2], d[2:3]
 
     st = grid.tile_rows
     best_t = jnp.full((1, o.shape[1]), F32_MAX)
-    best_g = jnp.zeros((TRI_GRID_COLS, o.shape[1]), jnp.float32)
+    best_row = jnp.zeros((1, o.shape[1]), jnp.int32)
     for t_i in range(grid.n_tiles):
         tl = grid.tile_attrs[t_i * st:(t_i + 1) * st]
         t_all = _sweep_tile_rows(tl, ox, oy, oz, dx, dy, dz, min_t)
         tile_t = jnp.min(t_all, axis=0, keepdims=True)
-        on = lane_mask[t_i:t_i + 1] > 0
-        better = on & (tile_t < best_t)
-        eq = t_all == tile_t
-        sub = jnp.arange(st, dtype=jnp.float32)[:, None]
-        winner = jnp.min(jnp.where(eq, sub, np.float32(st + 1)),
-                         axis=0, keepdims=True)
-        onehot = ((sub == winner) & better).astype(jnp.float32)
-        delta = tl.T @ onehot                              # [17, R]
-        flag = delta[TRI_ATTR_COLS:TRI_ATTR_COLS + 1]
-        best_g = best_g * (1.0 - flag) + delta
+        # First-occurrence argmin: within-tile ties keep the lowest row,
+        # which build_tri_grid orders by original index.
+        tile_row = (jnp.argmin(t_all, axis=0, keepdims=True)
+                    .astype(jnp.int32) + t_i * st)
+        better = (lane_mask[t_i:t_i + 1] > 0) & (tile_t < best_t)
         best_t = jnp.where(better, tile_t, best_t)
-    return best_t[:, :n], best_g[:, :n]
+        best_row = jnp.where(better, tile_row, best_row)
+    g = jnp.where(best_t < F32_MAX,
+                  jnp.take(grid.tile_attrs.T, best_row[0], axis=1), 0.0)
+    return best_t[:, :n], g[:, :n]
 
 
 def hit_triangles_grid_rows_jnp(
@@ -465,11 +358,8 @@ def hit_triangles_grid_rows_jnp(
     ray_block: int = 512,
     t_cap: Optional[jnp.ndarray] = None,
 ):
-    """Rows-record wrapper over the pure-jnp grid sweep: the CPU drop-in
-    for kernels/tri_grid_rows.hit_triangles_grid_rows (identical
-    HitRecordRows contract; the mask computes then discards without a
-    Mosaic schedule, so this path verifies the grid + ray-binning
-    drivers on jnp hosts rather than speeding them up)."""
+    """Rows-layout hit function (ops/rows.py interface) over the grid
+    sweep, with an optional occluding ``t_cap``."""
     from .ops.hit_tri import tri_record_rows_from_gather
     t_out, g = hit_triangles_grid_jnp(
         grid, origin, direction, time, min_t=min_t,
